@@ -7,25 +7,19 @@ tool.  Stages (each time-bounded):
 
   1 jax engine, broad random penalties/shapes, global+semi, adaptive
     on/off; plus oracle-score vs exact-DP cross-checks
-  2 pallas main kernel (interpret), incl. rebased-aux (kw) mode
-  3 pallas_long kernel (interpret)
-  4 semi-global two-phase pipeline (l>256 so full_span>512), default +
-    WFA_SEMI2_KERNEL_PREFIX=1
-  5 data-parallel pipeline over a virtual device mesh (ragged batches,
+  2 semi-global pipeline on the full-span window (l>256 so
+    full_span>512)
+  3 data-parallel pipeline over a virtual device mesh (ragged batches,
     shard padding, per-shard token plans)
-  6 global pipeline tier ladder at mid lengths (l 300-1500, escapes)
-  7 CLI round-trip: full stdout byte-equality between --no-device
+  4 global pipeline tier ladder at mid lengths (l 300-1500, escapes)
+  5 CLI round-trip: full stdout byte-equality between --no-device
     (oracle) and the device-engine path over random files and flags
 
 Usage: PYTHONPATH=. python tests/fuzz.py <stage> [budget_s]
 Env: WFA_FUZZ_SEED pins the RNG (default: wall clock).
 
-Round-3 campaign results (1200 s/stage, CPU): stage 1 138 rounds,
-stage 2 135, stage 3 136, stage 4 24+24 (both prefix variants),
-stage 5 53, stage 6 40 — ~6,500 random pairs, zero mismatches.  NB long runs need
-``vm.max_map_count`` raised (each interpret-mode compile adds
-mappings; the 65530 default dies with LLVM "Cannot allocate memory"
-after ~12 min).
+NB long runs need ``vm.max_map_count`` raised (each compile adds
+mappings; the 65530 default dies with LLVM "Cannot allocate memory").
 """
 import os
 import random
@@ -129,8 +123,7 @@ def stage1(rng, deadline):
         opts = Options(glob)
         oracle = OracleAligner(p, opts, ad)
         k_win = 256 if glob else 512
-        eng = BatchAligner(p, opts, ad, k_win=k_win, s_cap=256,
-                           engine="jax")
+        eng = BatchAligner(p, opts, ad, k_win=k_win, s_cap=256)
         pairs = random_pairs(rng, 12, 90)
         if not check(eng, oracle, pairs, f"jax p={p} g={glob} ad={ad}"):
             fails += 1
@@ -150,54 +143,6 @@ def stage1(rng, deadline):
 
 
 def stage2(rng, deadline):
-    from wfa_tpu.pallas_engine import supports
-
-    rounds = fails = 0
-    while time.time() < deadline:
-        glob = rng.random() < 0.6
-        # rebased-aux (kw) mode: global only, KW a 128-multiple < k_win
-        kw_mode = glob and rng.random() < 0.4
-        k_win = (256 if kw_mode else 128) if glob else 256
-        ad = rand_adaptive(rng)
-
-        def gate(p, _k=k_win, _g=glob, _ad=ad):
-            from wfa_tpu.engine import EngineConfig
-            cfg = EngineConfig(penalties=p, global_alignment=_g,
-                               adaptive=_ad, k_win=_k, s_cap=128)
-            return supports(cfg, 0)
-
-        p = rand_pen(rng, gate)
-        opts = Options(glob)
-        oracle = OracleAligner(p, opts, ad)
-        kw = f"pallas:kw128" if kw_mode else "pallas"
-        eng = BatchAligner(p, opts, ad, k_win=k_win, s_cap=128, engine=kw)
-        pairs = random_pairs(rng, 8, 60)
-        if not check(eng, oracle, pairs, f"{kw} p={p} g={glob} ad={ad}"):
-            fails += 1
-        rounds += 1
-    return rounds, fails
-
-
-def stage3(rng, deadline):
-    rounds = fails = 0
-    while time.time() < deadline:
-        glob = True  # longread kernel is the global long-read path
-        ad = rand_adaptive(rng)
-        p = rand_pen(rng, lambda p: max(p.mismatch,
-                                        p.gap_open + p.gap_ext) + 1 <= 64
-                     and p.gap_ext + 1 <= 64)
-        opts = Options(glob)
-        oracle = OracleAligner(p, opts, ad)
-        eng = BatchAligner(p, opts, ad, k_win=128, s_cap=128,
-                           engine="pallas_long")
-        pairs = random_pairs(rng, 6, 60)
-        if not check(eng, oracle, pairs, f"pallas_long p={p} ad={ad}"):
-            fails += 1
-        rounds += 1
-    return rounds, fails
-
-
-def stage4(rng, deadline):
     from wfa_tpu.pipeline import AlignmentPipeline, PipelineConfig
 
     rounds = fails = 0
@@ -219,7 +164,7 @@ def stage4(rng, deadline):
         for (q, t), r in zip(pairs, res):
             ref = oracle.align(q, t)
             if (r.score, r.cigar(False)) != (ref.score, ref.cigar(False)):
-                print(f"SEMI2 MISMATCH p={p} ad={ad} n={n}\n  q={q!r}\n"
+                print(f"SEMI MISMATCH p={p} ad={ad} n={n}\n  q={q!r}\n"
                       f"  t={t!r}\n  got {r.score} {r.cigar(False)}\n"
                       f"  want {ref.score} {ref.cigar(False)}", flush=True)
                 fails += 1
@@ -227,7 +172,7 @@ def stage4(rng, deadline):
     return rounds, fails
 
 
-def stage5(rng, deadline):
+def stage3(rng, deadline):
     """Random workloads through the data-parallel mesh pipeline
     (8 virtual CPU devices set up below): ragged batches, shard
     padding, divergent per-shard token plans."""
@@ -259,7 +204,7 @@ def stage5(rng, deadline):
     return rounds, fails
 
 
-def stage6(rng, deadline):
+def stage4(rng, deadline):
     """Mid-length global pairs through the pipeline's tier ladder —
     tier-0 window/score-cap escapes retrying on wider tiers."""
     from wfa_tpu.pipeline import AlignmentPipeline, PipelineConfig
@@ -291,7 +236,7 @@ def stage6(rng, deadline):
     return rounds, fails
 
 
-def stage7(rng, deadline):
+def stage5(rng, deadline):
     """Random pair files + flag combinations through the CLI: the
     device-engine run's stdout must equal the oracle run's
     byte-for-byte (scores, cigars, 3-row text, stats, summary)."""
@@ -355,12 +300,10 @@ def main():
     budget = float(sys.argv[2]) if len(sys.argv) > 2 else 600
     seed = int(os.environ.get("WFA_FUZZ_SEED", "0")) or int(time.time())
     rng = random.Random(seed)
-    print(f"stage {stage} seed {seed} budget {budget}s "
-          f"kernel_prefix={os.environ.get('WFA_SEMI2_KERNEL_PREFIX', '0')}",
-          flush=True)
+    print(f"stage {stage} seed {seed} budget {budget}s", flush=True)
     deadline = time.time() + budget
-    rounds, fails = [None, stage1, stage2, stage3, stage4, stage5,
-                     stage6, stage7][stage](rng, deadline)
+    rounds, fails = [None, stage1, stage2, stage3, stage4,
+                     stage5][stage](rng, deadline)
     print(f"stage {stage}: {rounds} rounds, {fails} failures", flush=True)
     sys.exit(1 if fails else 0)
 

@@ -165,8 +165,7 @@ def test_windowed_stop_tables_match_oracle():
     pairs = random_pairs(rng, 10, max_len=80)
     for w_win in (2, 4):
         engine = BatchAligner(p, Options(True), AdaptiveReductionOption(),
-                              k_win=128, s_cap=256, engine="jax",
-                              w_win=w_win)
+                              k_win=128, s_cap=256, w_win=w_win)
         for (q, t), res in zip(pairs, engine.align_batch(pairs)):
             assert_same(res, oracle.align(q, t), q, t, f"w{w_win}")
 
@@ -193,8 +192,7 @@ def test_small_step_penalties_large_s_cap():
     path and stay bit-exact."""
     p = Penalties(8, 6, 1)
     oracle = OracleAligner(p, Options(True), None)
-    engine = BatchAligner(p, Options(True), None, k_win=64, s_cap=65536,
-                          engine="jax")
+    engine = BatchAligner(p, Options(True), None, k_win=64, s_cap=65536)
     rng = random.Random(31)
     pairs = random_pairs(rng, 4, max_len=30)
     for (q, t), res in zip(pairs, engine.align_batch(pairs)):

@@ -1,9 +1,9 @@
-"""Realistic-length (l~1000) bit-exactness tests for both device engines.
+"""Realistic-length (l~1000) bit-exactness tests for the device engine.
 
 Every other correctness test uses max_len <= 120; the benchmarked paths
-(w_win streaming windows, tier ladders, 16-bit aux cells) only engage at
+(w_win streaming windows, tier ladders, 16-bit tokens) only engage at
 realistic lengths, so a handful of l~1000 pairs are checked end-to-end
-against the oracle here, for both engines, adaptive on and off.
+against the oracle here, adaptive on and off.
 """
 
 import pytest
@@ -25,16 +25,14 @@ def _check(engine, oracle, pairs, ctx):
 
 @pytest.mark.parametrize("adaptive", [None, AdaptiveReductionOption(10, 50, 1)],
                          ids=["plain", "adaptive"])
-@pytest.mark.parametrize("engine", ["jax", "pallas", "pallas_long"])
-def test_l1000_bit_exact(engine, adaptive):
+def test_l1000_bit_exact(adaptive):
     p = Penalties(4, 6, 2)
     oracle = OracleAligner(p, Options(True), adaptive)
     # e=0.05 at l=1000: scores ~300; k_win 192 covers the plain (untrimmed)
-    # band of the pallas run; jax uses the same caps as the tier-0 pipeline
-    eng = BatchAligner(p, Options(True), adaptive, k_win=192, s_cap=640,
-                      engine=engine)
+    # band
+    eng = BatchAligner(p, Options(True), adaptive, k_win=192, s_cap=640)
     pairs = generate_pairs(3, 1000, 0.05, seed=17)
-    _check(eng, oracle, pairs, f"{engine}-l1000")
+    _check(eng, oracle, pairs, "l1000")
 
 
 def test_l1000_jax_streaming_window():
@@ -43,19 +41,18 @@ def test_l1000_jax_streaming_window():
     ad = AdaptiveReductionOption(10, 50, 1)
     oracle = OracleAligner(p, Options(True), ad)
     eng = BatchAligner(p, Options(True), ad, k_win=128, s_cap=640,
-                      engine="jax", w_win=16)
+                      w_win=16)
     pairs = generate_pairs(2, 1000, 0.05, seed=23)
     _check(eng, oracle, pairs, "jax-w16-l1000")
 
 
 def test_l1000_semi_global_jax():
-    """Semi-global at l=1000 (full-span window; JAX engine — the kernel
-    gates out k_win > 512)."""
+    """Semi-global at l=1000 (full-span window)."""
     p = Penalties(4, 6, 2)
     ad = AdaptiveReductionOption(10, 50, 1)
     oracle = OracleAligner(p, Options(False), ad)
     eng = BatchAligner(p, Options(False), ad, k_win=2176, s_cap=640,
-                      engine="jax", w_win=16)
+                      w_win=16)
     pairs = generate_pairs(2, 1000, 0.05, seed=29)
     _check(eng, oracle, pairs, "semi-l1000")
 
@@ -97,8 +94,8 @@ def test_pipeline_indel_heavy_distribution_shift():
 
 def test_pipeline_long_sequence_tiers():
     """l>4096 pairs through the production pipeline: exercises the
-    long-sequence cap ladder (w_win streaming, JAX-engine tiers, serial
-    drain, 32-bit cells) end-to-end, bit-exact vs the oracle."""
+    long-sequence cap ladder (w_win streaming, 32-bit tokens)
+    end-to-end, bit-exact vs the oracle."""
     from wfa_tpu.pipeline import AlignmentPipeline, PipelineConfig
 
     p = Penalties(4, 6, 2)

@@ -1,7 +1,7 @@
 """Sharding tests on the virtual 8-device CPU mesh.
 
-Data-parallel results must match single-device results exactly — the TPU
-substitute for multi-node tests (no real multi-chip hardware needed).
+Data-parallel results must match single-device results exactly — the
+stand-in for multi-card tests (no real multi-card hardware needed).
 """
 
 import numpy as np
@@ -164,8 +164,7 @@ def test_mesh_padding_raw_token_path():
 
     # small penalty steps blow the compact-token key bound -> raw path
     eng = BatchAligner(Penalties(8, 6, 1), Options(True), None,
-                      k_win=64, s_cap=65536, engine="jax",
-                      mesh=make_dp_mesh(4))
+                      k_win=64, s_cap=65536, mesh=make_dp_mesh(4))
     from wfa_tpu import OracleAligner
 
     oracle = OracleAligner(Penalties(8, 6, 1), Options(True), None)
@@ -174,35 +173,6 @@ def test_mesh_padding_raw_token_path():
     for (q, t), res in zip(pairs, eng.align_batch(pairs)):
         ref = oracle.align(q, t)
         assert res.score == ref.score and res.cigar(False) == ref.cigar(False)
-
-
-@pytest.mark.skipif(
-    jax.device_count() < 4, reason="needs 4 (virtual) devices"
-)
-def test_pallas_engine_under_shard_map():
-    """The production TPU-pod path — the fused Pallas kernel INSIDE
-    shard_map (engine='pallas' + mesh) — bit-exact vs the oracle
-    (VERDICT r2 item 3; interpret mode on the CPU mesh)."""
-    from wfa_tpu import (AdaptiveReductionOption, Options, OracleAligner,
-                         Penalties)
-    from wfa_tpu.datagen import generate_pairs
-    from wfa_tpu.engine import BatchAligner
-    from wfa_tpu.parallel import make_dp_mesh
-
-    pen = Penalties(4, 6, 2)
-    ada = AdaptiveReductionOption(10, 50, 1)
-    eng = BatchAligner(pen, Options(True), ada, k_win=128, s_cap=128,
-                       engine="pallas", mesh=make_dp_mesh(4))
-    oracle = OracleAligner(pen, Options(True), ada)
-    pairs = generate_pairs(12, 60, 0.12, seed=21)  # 12 -> padded to 4x
-    results = eng.align_batch(pairs, fallback=False)
-    for (q, t), res in zip(pairs, results):
-        assert res is not None
-        ref = oracle.align(q, t)
-        assert res.score == ref.score, (q, t)
-        assert res.cigar(False) == ref.cigar(False), (q, t)
-        assert (res.align_len, res.matches, res.gaps) == (
-            ref.align_len, ref.matches, ref.gaps)
 
 
 _MULTIHOST_WORKER = r"""
@@ -227,22 +197,23 @@ assert pipe._mesh is not None and pipe._mesh.devices.size == jax.device_count()
 pairs = generate_pairs(12, 50, 0.1, seed=33)
 results = pipe.align_all(pairs)
 # the DEVICE path must have produced these (a fetch failure would fall
-# back to the host oracle and still "pass" — silently untested DCN path)
-assert pipe._device_errors == 0, pipe._device_errors
+# back to the host oracle and still "pass" — a silently untested path)
+assert pipe.device_faults == 0, pipe.device_faults
+assert pipe.oracle_pairs == 0, pipe.oracle_pairs
 digest = [(r.score, r.cigar(False), r.align_len, r.matches) for r in results]
 print("DIGEST:" + repr(digest))
 
-# two-phase semi-global multi-host: both shard_map phases + the
-# allgathered mid-point re-placement
+# semi-global multi-process: the full-span window over the global mesh
 scfg = PipelineConfig(
     penalties=Penalties(4, 6, 2), options=Options(False),
     adaptive=AdaptiveReductionOption(10, 50, 1), batch_size=6)
 spipe = AlignmentPipeline(scfg)
 spairs = generate_pairs(6, 280, 0.06, seed=77)
 sres = spipe.align_all(spairs)
-assert spipe._device_errors == 0, spipe._device_errors
-assert any(k[3].startswith("semi2") for k in spipe._engines), (
-    "multi-host pipeline never used the two-phase semi-global path")
+assert spipe.device_faults == 0, spipe.device_faults
+assert spipe.oracle_pairs == 0, spipe.oracle_pairs
+assert all(k[0] >= 2 * 280 for k in spipe._engines), (
+    "semi-global window narrower than the full diagonal span")
 sdigest = [(r.score, r.cigar(False), r.align_len, r.matches) for r in sres]
 print("SDIGEST:" + repr(sdigest))
 """
@@ -341,67 +312,3 @@ def test_pipeline_mesh_realistic_length():
             ref.q_begin, ref.q_end, ref.t_begin, ref.t_end)
         assert (res.align_len, res.matches, res.gaps, res.gap_regions) == (
             ref.align_len, ref.matches, ref.gaps, ref.gap_regions)
-
-
-@pytest.mark.skipif(
-    jax.device_count() < 4, reason="needs 4 (virtual) devices"
-)
-def test_semi2_pipeline_under_mesh():
-    """Two-phase semi-global data-parallel over a mesh: both device
-    phases run through shard_map (parallel.dp_semi2_*_fn) with the
-    batch mesh-padded; results bit-exact vs the oracle and the pipeline
-    must actually pick a semi2 tier (not the full-span fallback)."""
-    from wfa_tpu import (AdaptiveReductionOption, Options, OracleAligner,
-                         Penalties)
-    from wfa_tpu.datagen import generate_pairs
-    from wfa_tpu.pipeline import AlignmentPipeline, PipelineConfig
-
-    cfg = PipelineConfig(
-        penalties=Penalties(4, 6, 2), options=Options(False),
-        adaptive=AdaptiveReductionOption(10, 50, 1), batch_size=9,
-        n_devices=4)
-    pipe = AlignmentPipeline(cfg)
-    assert pipe._mesh is not None and pipe._mesh.devices.size == 4
-    # l=300 -> full_span > 512 fires the semi2 ladder; 9 pairs over 4
-    # devices exercises the mesh padding inside _submit_semi2
-    pairs = generate_pairs(9, 300, 0.05, seed=23)
-    results = pipe.align_all(pairs)
-    assert any(k[3].startswith("semi2") for k in pipe._engines), (
-        "mesh pipeline never used the two-phase semi-global path")
-    oracle = OracleAligner(cfg.penalties, cfg.options, cfg.adaptive)
-    for (q, t), res in zip(pairs, results):
-        ref = oracle.align(q, t)
-        assert res.score == ref.score, (q, t)
-        assert res.cigar(False) == ref.cigar(False), (q, t)
-        assert (res.align_len, res.matches, res.gaps, res.gap_regions) == (
-            ref.align_len, ref.matches, ref.gaps, ref.gap_regions)
-
-
-@pytest.mark.skipif(
-    jax.device_count() < 4, reason="needs 4 (virtual) devices"
-)
-def test_semi2_kernel_prefix_under_mesh(monkeypatch):
-    """The Pallas prefix kernel under shard_map (WFA_SEMI2_KERNEL_PREFIX=1
-    + mesh): phase 1 runs the chunked kernel per shard, aux_old rides
-    pairs-on-lanes through the dp specs, phase 2 resumes with
-    old_lanes — bit-exact vs the oracle."""
-    from wfa_tpu import (AdaptiveReductionOption, Options, OracleAligner,
-                         Penalties)
-    from wfa_tpu.datagen import generate_pairs
-    from wfa_tpu.pipeline import AlignmentPipeline, PipelineConfig
-
-    monkeypatch.setenv("WFA_SEMI2_KERNEL_PREFIX", "1")
-    cfg = PipelineConfig(
-        penalties=Penalties(4, 6, 2), options=Options(False),
-        adaptive=AdaptiveReductionOption(10, 50, 1), batch_size=9,
-        n_devices=4)
-    pipe = AlignmentPipeline(cfg)
-    pairs = generate_pairs(9, 300, 0.05, seed=29)
-    results = pipe.align_all(pairs)
-    assert any(k[3].startswith("semi2") for k in pipe._engines), (
-        "mesh pipeline never used the two-phase semi-global path")
-    oracle = OracleAligner(cfg.penalties, cfg.options, cfg.adaptive)
-    for (q, t), res in zip(pairs, results):
-        ref = oracle.align(q, t)
-        assert res.score == ref.score, (q, t)
-        assert res.cigar(False) == ref.cigar(False), (q, t)

@@ -1,11 +1,10 @@
-"""Pipeline tier routing for the long-read kernel modes: every global
-read past l=4096 takes the pairs-on-sublanes long-read kernel (its
-per-8-pair-group stop-table windows tolerate the cross-pair progress
-spread long lengths develop — the main kernel's block-shared window
-measured 78-116/128 outrun-overflows at l=10k-50k), and the narrow
-just-past-int16 band keeps the main kernel with value-rebased aux.
-Routing decisions only — kernel bit-exactness lives in
-tests/test_rebase_aux.py and tests/test_long_pairs.py."""
+"""Pipeline tier caps: every class runs the XLA engine, and the caps
+pick its diagonal window, score cap, stop-table read window and batch
+admission.  Global reads past l=4096 keep the narrow tier-0 window and
+read the stop tables through a windowed slice; semi-global holds the
+full diagonal span at every tier.  Routing decisions only — the
+bit-exactness of these routes lives in tests/test_long_pairs.py,
+tests/test_semi_full_span.py and tests/test_gpu_bringup.py."""
 
 import dataclasses
 
@@ -14,59 +13,74 @@ from wfa_tpu.pipeline import AlignmentPipeline, PipelineConfig
 
 PEN = Penalties(4, 6, 2)
 ADA = AdaptiveReductionOption(10, 50, 1)
+GIB = 1 << 30
 
 
 def _cfg(**kw):
+    kw.setdefault("hbm_budget", 30 * GIB)
     return PipelineConfig(penalties=PEN, options=Options(True),
                           adaptive=ADA, n_devices=1, **kw)
 
 
 def test_long_reads_route_to_longread_kernel():
+    """l=50k global: the narrow tier-0 window with windowed stop-table
+    reads on the XLA engine, admitted within the budget."""
     pipe = AlignmentPipeline(_cfg())
-    k_win, s_cap, _, b_cap, engine, serial, _bb = pipe._tier_caps(
-        50000, 50000, 0)
-    assert engine == "pallas_long"
-    assert serial  # multi-GB batches must drain one at a time
+    caps = pipe._tier_caps(50000, 50000, 0)
+    assert caps.k_win == 384 and caps.w_win == 128
     # tier 0's score cap must cover e=0.1 workloads (score ~0.53*l) so
     # they don't burn a doomed full-length pass before tier 1
-    assert s_cap >= int(0.54 * 50000)
-    # whole blocks: the kernel pads batches to its block multiple
-    assert b_cap >= 64 and b_cap % 64 == 0
+    assert caps.s_cap >= int(0.54 * 50000)
+    assert 1 <= caps.b_cap and caps.batch_bytes <= pipe.hbm_budget
+    # retries widen the read window, not the diagonal window
+    assert [pipe._tier_caps(50000, 50000, t).w_win
+            for t in (1, 2)] == [256, 512]
+    assert pipe._tier_caps(50000, 50000, 2).k_win == 384
 
 
 def test_midlength_routes_to_longread_kernel():
     pipe = AlignmentPipeline(_cfg())
     for l in (10000, 20000):
-        engine = pipe._tier_caps(l, l, 0)[4]
-        assert engine == "pallas_long", (l, engine)
+        caps = pipe._tier_caps(l, l, 0)
+        assert caps.k_win <= 512 and caps.w_win == 128, (l, caps)
 
 
 def test_just_past_int16_band_keeps_main_kernel():
-    """l past the 13-bit offset limit but at most 4096: the main kernel
-    with pure value rebase (KW == k_win, int16 cells)."""
-    pipe = AlignmentPipeline(_cfg())
-    k_win, _, _, _, engine, _, _bb = pipe._tier_caps(4000, 4000, 0)
-    assert engine == f"auto:kw{k_win}"
+    """l past the 13-bit offset limit but at most 4096: whole-table
+    reads, the tight window, over a thousand pairs admitted."""
+    pipe = AlignmentPipeline(_cfg(batch_size=2048))
+    caps = pipe._tier_caps(4000, 4000, 0)
+    assert caps.w_win is None and caps.k_win == 256
+    assert caps.b_cap >= 1024
 
 
 def test_short_reads_route_plain():
     pipe = AlignmentPipeline(_cfg())
-    assert pipe._tier_caps(1000, 1000, 0)[4] == "auto"
+    caps = pipe._tier_caps(1000, 1000, 0)
+    assert (caps.k_win, caps.s_cap, caps.w_win) == (128, 640, None)
+    # the ladder widens the window, then spans every diagonal
+    assert pipe._tier_caps(1000, 1000, 1).k_win == 512
+    assert pipe._tier_caps(1000, 1000, 2).k_win == 2048
 
 
 def test_tiny_budget_falls_to_longread_kernel():
+    """A budget below one l=50k pair's history clamps the score cap so
+    that one pair fits, rather than admitting a batch that cannot."""
     pipe = AlignmentPipeline(_cfg(hbm_budget=200 << 20))
-    _, _, _, b_cap, engine, _, _bb = pipe._tier_caps(50000, 50000, 0)
-    assert engine == "pallas_long"
-    # sub-block caps stay small (the long-read kernel shrinks its block
-    # size) rather than rounding up past the budget
-    assert b_cap <= 8
+    caps = pipe._tier_caps(50000, 50000, 0)
+    assert caps.b_cap >= 1
+    assert caps.batch_bytes <= 200 << 20
+    assert caps.s_cap < int(0.55 * 50000)
 
 
 def test_semi_global_unaffected():
     cfg = dataclasses.replace(_cfg(), options=Options(False))
     pipe = AlignmentPipeline(cfg)
-    assert pipe._tier_caps(1000, 1010, 0)[4].startswith("semi2")
+    for tier in (0, 1, 2, 3):
+        caps = pipe._tier_caps(1000, 1010, tier)
+        assert caps.k_win == 2048, (tier, caps)  # the full diagonal span
+    assert [pipe._tier_caps(1000, 1010, t).w_win for t in (0, 1, 2)] == [
+        32, 64, None]
 
 
 def test_score_cap_memory_feedback():

@@ -1,6 +1,6 @@
-"""wfa_tpu — a TPU-native wavefront-alignment (WFA) framework.
+"""wfa_tpu — a batched wavefront-alignment (WFA) framework on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the gap-affine wavefront
+A from-scratch JAX/XLA re-design of the gap-affine wavefront
 alignment algorithm (Marco-Sola et al. 2020) with the same capabilities
 and bit-identical outputs (scores, CIGARs, coordinates, stats) as the
 reference Go implementation:
@@ -12,11 +12,14 @@ reference Go implementation:
 Layers:
 
 * :mod:`wfa_tpu.oracle`  — exact scalar executable spec (correctness oracle)
-* :mod:`wfa_tpu.engine`  — batched TPU score-loop engine (JAX / Pallas)
+* :mod:`wfa_tpu.engine`  — batched device score-loop engine (JAX / XLA)
 * :mod:`wfa_tpu.cigar`   — CIGAR op-runs, stats, text rendering
+* :mod:`wfa_tpu.pipeline`— bucketing, tiered retry, batch streaming
 * :mod:`wfa_tpu.parallel`— data-parallel sharding over device meshes
 * :mod:`wfa_tpu.cli`     — the ``wfa-tpu`` command-line tool
 """
+
+import os
 
 from .cigar import AlignmentResult
 from .constants import (
@@ -50,10 +53,27 @@ def __getattr__(name):
     raise AttributeError(name)
 
 
+def enable_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at one fixed directory
+    and return it.
+
+    ``JAX_COMPILATION_CACHE_DIR`` wins when set.  Otherwise the cache is
+    ``.jax_cache`` at the root of the checkout: a path that never
+    changes between runs, since the directory is part of what lets a
+    later process find an earlier one's programs."""
+    import jax
+
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
 # -- recycling API parity --------------------------------------------------
 # The reference exposes sync.Pool-based object recycling as part of its API
 # contract (README.md:82-84, 207-214; wfa.go:102, wfa_cigar.go:92).  The
-# TPU framework's state is functional/preallocated, so recycling is a
+# batched framework's state is functional/preallocated, so recycling is a
 # no-op — these exist so reference callers can port code unchanged.
 
 def recycle_aligner(aligner) -> None:
@@ -92,6 +112,7 @@ __all__ = [
     "OracleAligner",
     "Penalties",
     "SeqTooLongError",
+    "enable_compile_cache",
     "oracle_align",
     "recycle_aligner",
     "recycle_alignment_result",

@@ -3,14 +3,13 @@
 These functions are storage-agnostic: they operate on any objects exposing
 the small component protocol (``get``, ``get_raw``, ``get_after_diff``,
 ``has_score``, ``k_range``) — satisfied both by the oracle's dict-backed
-components and by the TPU engine's dense-history views.  The algorithm is
-the reference's backtrace (wfa.go:703-983) and semi-global end finder
+components and by dense-history views.  The algorithm is the
+reference's backtrace (wfa.go:703-983) and semi-global end finder
 (wfa.go:270-375), transcribed exactly.
 
-The backtrace is inherently sequential and data-dependent per pair — the
-wrong shape for the TPU's vector units — so in the TPU engine it runs
-host-side over device-produced packed tag tensors (or in the native C++
-runtime for throughput), while the O(s·band) score loop runs on-device.
+The backtrace is sequential and data-dependent per pair; the device
+engine runs a lockstep port of it (wfa_tpu.device_backtrace) that is
+tested against this one.
 """
 
 from __future__ import annotations

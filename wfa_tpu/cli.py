@@ -10,8 +10,8 @@ Reference CLI: wfa-go/wfa-go.go.  Flags (wfa-go.go:70-78):
     -p / -m     cpu / mem profile
     -h          help
 
-TPU-native extras: --batch-size, --no-device (host oracle only),
---profile-dir (jax profiler trace output).
+Extras: --batch-size, --no-device (host oracle only), --devices N
+(data-parallel device count), --profile-dir (jax profiler trace output).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from .io import read_pairs
 from .pipeline import AlignmentPipeline, PipelineConfig
 
 USAGE = """\
-WFA alignment on TPU (JAX / Pallas)
+WFA alignment, batched on an accelerator (JAX)
 
 Input file format:
   Alternating lines; the first character of each line is stripped:
@@ -89,8 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="data-parallel device count (0 = all local devices)")
     ap.add_argument(
         "--distributed", action="store_true",
-        help="multi-host: jax.distributed.initialize before building the "
-             "mesh (coordinator from JAX_COORDINATOR_ADDRESS)")
+        help="multi-process: jax.distributed.initialize before building "
+             "the mesh (coordinator from JAX_COORDINATOR_ADDRESS)")
     ap.add_argument("--profile-dir", default="")
     ap.add_argument(
         "--resume", default="",

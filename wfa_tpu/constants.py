@@ -1,4 +1,4 @@
-"""Shared constants of the TPU-native WFA engine.
+"""Shared constants of the batched WFA engine.
 
 The 3-bit backtrace-tag encoding is kept bit-identical to the reference
 implementation (reference: wfa_backtrace_types.go:24-39) so that packed

@@ -2,7 +2,7 @@
 
 A classic O(n·m) Gotoh dynamic program, written independently of the
 wavefront recurrences, used by the property tests to validate that the
-WFA engines (oracle and TPU) return the optimal gap-affine score.
+WFA engines (oracle and device) return the optimal gap-affine score.
 
 Global here also means the reference's flavor: the alignment always
 *starts* with a match/mismatch consuming (q[0], t[0]) — the reference

@@ -8,7 +8,7 @@ of each line stripped (conventionally ``>query`` / ``<target``)::
     <GATTGGAAAATAGGATGG...
 
 Bucketing groups pairs into shape classes so the jitted device engine
-compiles once per class instead of once per file — the TPU analog of the
+compiles once per class instead of once per file — the batched analog of the
 reference's one-reused-aligner-per-file loop (wfa-go.go:96-111).
 """
 

@@ -4,12 +4,12 @@ This module is the *oracle*: a direct, scalar transcription of the exact
 semantics of the reference gap-affine wavefront aligner — seeding
 (wfa.go:143-184), extend (wfa.go:381-458), next with its tie-breaking rules
 (wfa.go:549-700), wf-adaptive reduction (wfa.go:461-540), the semi-global
-end finder (wfa.go:270-375) and the backtrace (wfa.go:703-983).  The TPU
+end finder (wfa.go:270-375) and the backtrace (wfa.go:703-983).  The device
 engine (wfa_tpu.engine) must agree with this module bit-for-bit on scores,
 CIGARs, coordinates and stats; the test-suite enforces that.
 
 It is intentionally simple and unoptimized — correctness reference only.
-The storage layout here (per-score dict wavefronts) is *not* the TPU
+The storage layout here (per-score dict wavefronts) is *not* the device
 layout; only the observable semantics match.
 """
 

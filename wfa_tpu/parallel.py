@@ -4,11 +4,12 @@ Pairwise alignment is embarrassingly parallel, so the one applicable
 parallelism strategy is data parallelism: the pair batch is sharded over
 a 1-D mesh (``dp`` axis) with ``shard_map``; each device runs the full
 lockstep score loop on its shard and the only collectives are output
-gathers riding ICI (the reference has no distributed machinery at all —
-concurrency is pushed to the caller, wfa.go:74-77).
+gathers (the reference has no distributed machinery at all —
+concurrency is pushed to the caller, wfa.go:74-77).  Every device pair
+is equally close, so the mesh needs no topology.
 
-Multi-host: `jax.distributed.initialize()` before building the mesh; the
-same code runs with DCN-backed global meshes.
+Multi-process: `jax.distributed.initialize()` before building the mesh;
+the same code then runs over the global mesh.
 """
 
 from __future__ import annotations
@@ -20,12 +21,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-
-try:  # jax >= 0.8
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from .engine import (EngineConfig, _State, _align_full2_impl,
                      _run_batch_impl)
@@ -68,7 +65,7 @@ def dp_align_state(
     """Run the score loop data-parallel over the mesh.
 
     Returns the full per-pair final state (globally sharded along the
-    batch axis) and a psum-reduced pair-done count (an ICI collective).
+    batch axis) and a psum-reduced pair-done count (a collective).
     """
     lb = _local_b(qb.shape[0], mesh)
 
@@ -90,8 +87,8 @@ def dp_align_state(
 
 
 def initialize_distributed(**kwargs) -> int:
-    """Multi-host entry: `jax.distributed.initialize` (DCN-coordinated),
-    idempotent; returns the process count.  Single-process runs (no
+    """Multi-process entry: `jax.distributed.initialize`, idempotent;
+    returns the process count.  Single-process runs (no
     coordinator configured) are a no-op."""
     import os
 
@@ -107,14 +104,14 @@ _DP_FULL_CACHE: dict = {}
 
 
 def dp_align_full_fn(cfg: EngineConfig, mesh: Mesh, B: int, Lq: int,
-                     Ltb: int, engine: str = "jax", packed: bool = False):
+                     Ltb: int, packed: bool = False):
     """Cached jitted data-parallel full-alignment step.
 
     One compilation per (cfg, mesh, shapes) — the production pipeline
     calls this per batch, so the shard_map closure must not be rebuilt
     each time (a fresh `jax.jit` per call would recompile every batch).
     """
-    key = (cfg, mesh, B, Lq, Ltb, engine, packed)
+    key = (cfg, mesh, B, Lq, Ltb, packed)
     fn = _DP_FULL_CACHE.get(key)
     if fn is not None:
         return fn
@@ -139,8 +136,7 @@ def dp_align_full_fn(cfg: EngineConfig, mesh: Mesh, B: int, Lq: int,
     )
     def _sharded(seq_s, lens_s):
         return _align_full2_impl(
-            seq_s, lens_s, cfg=cfg, B=lb, Lq=Lq, Ltb=Ltb,
-            engine=engine, packed=packed,
+            seq_s, lens_s, cfg=cfg, B=lb, Lq=Lq, Ltb=Ltb, packed=packed,
         )
 
     fn = jax.jit(_sharded)
@@ -150,114 +146,18 @@ def dp_align_full_fn(cfg: EngineConfig, mesh: Mesh, B: int, Lq: int,
 
 def dp_align_full(
     qb, tbuf, qlen, tlen, toff, *, cfg: EngineConfig, mesh: Mesh,
-    Lq: int, Ltb: int, engine: str = "jax", packed: bool = False,
+    Lq: int, Ltb: int, packed: bool = False,
 ):
     """Full data-parallel alignment (score loop + device backtrace).
 
     Returns the compact per-pair outputs dict, batch-sharded — only op
-    tokens and scalars cross the ICI, never the wavefront history.
+    tokens and scalars leave the devices, never the wavefront history.
     """
-    fn = dp_align_full_fn(cfg, mesh, qb.shape[0], Lq, Ltb, engine, packed)
+    fn = dp_align_full_fn(cfg, mesh, qb.shape[0], Lq, Ltb, packed)
     seq = jnp.concatenate([qb, tbuf], axis=1)
     lens = jnp.stack([qlen.astype(jnp.int32), tlen.astype(jnp.int32),
                       toff.astype(jnp.int32)], axis=1)
     return fn(seq, lens)
-
-
-_DP_SEMI2_CACHE: dict = {}
-
-# export/handoff tensors of the two-phase semi-global path (wfa_tpu.semi2)
-# shard along their batch axis; everything else is replicated per shard
-_SEMI2_EXPORT_SPECS = {
-    "win_m": P(None, "dp", None), "win_i": P(None, "dp", None),
-    "win_d": P(None, "dp", None), "ainit": P(None, "dp", None),
-    "b_m": P(None, "dp"), "b_ie": P(None, "dp"),
-    "meta1": P("dp"), "aux_old": P(None, None, "dp", None),
-}
-
-
-def dp_semi2_prefix_fn(cfg: EngineConfig, mesh: Mesh, B: int, Lq: int,
-                       Ltb: int, S0: int, K2: int, packed: bool,
-                       use_kernel: bool = False):
-    """Cached jitted data-parallel phase-1 exporter (wfa_tpu.semi2):
-    each device runs the full-span prefix on its batch shard and emits
-    the batch-sharded handoff dict.  Host mid-point work (window fetch,
-    target re-placement) is untouched — it already operates on the
-    whole batch.  ``use_kernel`` runs the Pallas prefix kernel per
-    shard (aux_old then rides pairs-on-lanes: batch on the LAST axis,
-    possibly lane-padded per shard — phase 2 must get old_lanes)."""
-    key = ("prefix", cfg, mesh, B, Lq, Ltb, S0, K2, packed, use_kernel)
-    fn = _DP_SEMI2_CACHE.get(key)
-    if fn is not None:
-        return fn
-    from .semi2 import _prefix_export2_impl
-
-    lb = B // mesh.devices.size
-    assert B % mesh.devices.size == 0
-    out_specs = dict(_SEMI2_EXPORT_SPECS)
-    if use_kernel:
-        out_specs["aux_old"] = P(None, None, None, "dp")
-
-    @functools.partial(
-        shard_map, mesh=mesh, in_specs=(P("dp"), P("dp")),
-        out_specs=out_specs, check_vma=False,
-    )
-    def _sharded(seq_s, lens_s):
-        return _prefix_export2_impl(
-            seq_s, lens_s, cfg=cfg, B=lb, Lq=Lq, Ltb=Ltb, S0=S0, K2=K2,
-            packed=packed, use_kernel=use_kernel)
-
-    fn = jax.jit(_sharded)
-    _DP_SEMI2_CACHE[key] = fn
-    return fn
-
-
-def dp_semi2_phase2_fn(cfg: EngineConfig, mesh: Mesh, B: int, Lq: int,
-                       Ltb_full: int, Ltb2: int, S0: int, packed: bool,
-                       old_lanes: bool = False):
-    """Cached jitted data-parallel phase-2 resume: the narrow-window
-    kernel + dual-aux backtrace runs per shard on the re-placed targets;
-    outputs match :func:`dp_align_full_fn`'s sharded layout.
-    ``old_lanes``: aux_old came from the kernel prefix (pairs-on-lanes,
-    batch on the last axis)."""
-    key = ("phase2", cfg, mesh, B, Lq, Ltb_full, Ltb2, S0, packed,
-           old_lanes)
-    fn = _DP_SEMI2_CACHE.get(key)
-    if fn is not None:
-        return fn
-    from .engine import _token_plan
-    from .semi2 import _phase2_impl
-
-    lb = B // mesh.devices.size
-    assert B % mesh.devices.size == 0
-    _, compact = _token_plan(cfg.s_cap, cfg.penalties, Lq, Ltb_full)
-    if compact:
-        out_specs2 = {"mt": P("dp")}
-    else:
-        out_specs2 = {"meta": P("dp"), "tok0": P("dp"),
-                      "buf": P(None, "dp", None), "tail": P("dp")}
-    aux_spec = (P(None, None, None, "dp") if old_lanes
-                else _SEMI2_EXPORT_SPECS["aux_old"])
-    in_specs = (P("dp"), P("dp"),
-                _SEMI2_EXPORT_SPECS["win_m"], _SEMI2_EXPORT_SPECS["win_i"],
-                _SEMI2_EXPORT_SPECS["win_d"], _SEMI2_EXPORT_SPECS["ainit"],
-                _SEMI2_EXPORT_SPECS["b_m"], _SEMI2_EXPORT_SPECS["b_ie"],
-                _SEMI2_EXPORT_SPECS["meta1"], aux_spec)
-
-    @functools.partial(
-        shard_map, mesh=mesh, in_specs=in_specs,
-        out_specs=out_specs2, check_vma=False,
-    )
-    def _sharded(seq2_s, lens2_s, wm_s, wi_s, wd_s, ai_s, bm_s, bie_s,
-                 m1_s, ao_s):
-        return _phase2_impl(
-            seq2_s, lens2_s, wm_s, wi_s, wd_s, ai_s, bm_s, bie_s, m1_s,
-            ao_s, cfg=cfg, B=lb, Lq=Lq, Ltb_full=Ltb_full, Ltb2=Ltb2,
-            S0=S0, packed=packed, old_lanes=old_lanes)
-
-    fn = jax.jit(_sharded)
-    _DP_SEMI2_CACHE[key] = fn
-    return fn
 
 
 def dp_align_scores(

@@ -8,7 +8,7 @@ GetAfterDiff recomputation as the backtrace (:110-178), and cells print
 as ``<arrow><score>`` in a tab-separated table (:182-208).
 
 Operates on the host oracle aligner's state (the reference's Plot is a
-debugging aid over its in-memory components; the TPU engines' dense
+debugging aid over its in-memory components; the device engine's dense
 histories can be loaded into an oracle-compatible view if needed).
 """
 
